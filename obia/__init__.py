@@ -1,6 +1,6 @@
 """Drop-in compatibility namespace for the reference package layout.
 
-Every public module path from iosefa/obia resolves here to the TPU-native
+Every public module path from iosefa/obia resolves here to the JAX
 implementation in :mod:`obia_tpu` (SURVEY.md §7 'Public API to preserve'),
 so reference users can switch without changing imports:
 

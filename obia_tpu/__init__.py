@@ -1,8 +1,8 @@
-"""obia_tpu — a TPU-native Object-Based Image Analysis framework.
+"""obia_tpu — an accelerator Object-Based Image Analysis framework on JAX.
 
 A from-scratch rebuild of the capabilities of iosefa/obia (see SURVEY.md),
-designed TPU-first: segmentation (SLIC / quickshift) and per-object feature
-extraction run as JAX/XLA/Pallas programs over HBM-resident label rasters;
+for an NVIDIA GPU: segmentation (SLIC / quickshift) and per-object feature
+extraction run as JAX/XLA programs over device-resident label rasters;
 classification inference is a single batched XLA pass; large mosaics shard
 over a `jax.sharding.Mesh`. Raster/vector I/O (GeoTIFF codec, GeoPackage,
 geometry/WKB) is self-contained — no GDAL, rasterio, shapely, geopandas, or

@@ -9,9 +9,12 @@ per-object prediction with optional spatial class constraints and a top-2
 Execution model: the reference's per-row ``predict_proba([x_pred[idx]])``
 loop (classify.py:135-158, hot loop #3) is ONE batched device pass —
 :class:`obia_tpu.classification.forest.JaxForestClassifier` (host-fit
-sklearn forest, XLA traversal) or
+CART forest, XLA traversal) or
 :class:`obia_tpu.classification.mlp.FlaxMLPClassifier`. The
-acceptable-classes spatial filter is a vectorised probability mask.
+acceptable-classes spatial filter is a vectorised probability mask. The
+split, scaler and metrics are small numpy equivalents of scikit-learn's
+``train_test_split``, ``StandardScaler``, ``confusion_matrix`` and
+``classification_report``, so no scikit-learn is needed.
 
 Deliberate divergences (SURVEY.md §7 quirks):
 * #4 — one StandardScaler is fitted on the training split and applied to
@@ -90,6 +93,76 @@ def _feature_frame(df) -> pd.DataFrame:
     return x.astype(np.float64)
 
 
+def _train_test_split(x, y, test_size: float, random_state: int):
+    """scikit-learn's ``train_test_split`` for a float ``test_size``: the
+    same permutation, so the same rows land in each split."""
+    n = len(x)
+    n_test = int(np.ceil(test_size * n))
+    perm = np.random.RandomState(random_state).permutation(n)
+    test, train = perm[:n_test], perm[n_test:]
+    return x.iloc[train], x.iloc[test], y.iloc[train], y.iloc[test]
+
+
+class _StandardScaler:
+    """Zero mean, unit (population) variance per column; constant columns
+    keep scale 1."""
+
+    def fit(self, x):
+        x = np.asarray(x, np.float64)
+        self.mean_ = x.mean(axis=0)
+        scale = x.std(axis=0)
+        self.scale_ = np.where(scale < 10 * np.finfo(np.float64).eps
+                               * np.maximum(np.abs(self.mean_), 1.0),
+                               1.0, scale)
+        return self
+
+    def transform(self, x):
+        return (np.asarray(x, np.float64) - self.mean_) / self.scale_
+
+
+def confusion_matrix(y_true, y_pred) -> np.ndarray:
+    """(L, L) counts, rows true and columns predicted, over the sorted
+    union of labels."""
+    y_true = np.asarray(y_true)
+    y_pred = np.asarray(y_pred)
+    labels = np.unique(np.concatenate([y_true, y_pred]))
+    t = np.searchsorted(labels, y_true)
+    p = np.searchsorted(labels, y_pred)
+    cm = np.zeros((len(labels), len(labels)), np.int64)
+    np.add.at(cm, (t, p), 1)
+    return cm
+
+
+def classification_report(y_true, y_pred) -> str:
+    """Per-class precision, recall, F1 and support, with accuracy and the
+    macro and support-weighted averages, as a text table."""
+    labels = np.unique(np.concatenate([np.asarray(y_true),
+                                       np.asarray(y_pred)]))
+    cm = confusion_matrix(y_true, y_pred).astype(np.float64)
+    tp = np.diag(cm)
+    support = cm.sum(axis=1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        precision = np.nan_to_num(tp / cm.sum(axis=0))
+        recall = np.nan_to_num(tp / support)
+        f1 = np.nan_to_num(2 * precision * recall / (precision + recall))
+    width = max(12, max(len(str(c)) for c in labels))
+    head = f"{'':>{width}} {'precision':>9} {'recall':>9} {'f1-score':>9}" \
+           f" {'support':>9}"
+    rows = [head, ""]
+    for i, c in enumerate(labels):
+        rows.append(f"{str(c):>{width}} {precision[i]:9.2f} {recall[i]:9.2f}"
+                    f" {f1[i]:9.2f} {int(support[i]):9d}")
+    n = support.sum()
+    rows += ["", f"{'accuracy':>{width}} {'':>9} {'':>9} "
+                 f"{tp.sum() / max(n, 1):9.2f} {int(n):9d}"]
+    w = support / max(n, 1)
+    for name, agg in (("macro avg", lambda v: v.mean()),
+                      ("weighted avg", lambda v: (v * w).sum())):
+        rows.append(f"{name:>{width}} {agg(precision):9.2f} "
+                    f"{agg(recall):9.2f} {agg(f1):9.2f} {int(n):9d}")
+    return "\n".join(rows) + "\n"
+
+
 def classify(segments, training_classes, acceptable_classes_gdf=None,
              method: str = "rf", test_size: float = 0.2,
              compute_reports: bool = False, compute_shap: bool = False,
@@ -98,9 +171,6 @@ def classify(segments, training_classes, acceptable_classes_gdf=None,
              **kwargs) -> ClassifiedImage:
     """Train on labelled objects, predict every object in one device pass
     (reference classify.py:68-175)."""
-    from sklearn.model_selection import train_test_split
-    from sklearn.preprocessing import StandardScaler
-
     from .. import telemetry
 
     # Ergonomic extension over the reference: accept a Segments façade
@@ -113,13 +183,13 @@ def classify(segments, training_classes, acceptable_classes_gdf=None,
     y = training_classes["feature_class"]
     feature_cols = list(x.columns)
 
-    x_train, x_test, y_train, y_test = train_test_split(
+    x_train, x_test, y_train, y_test = _train_test_split(
         x, y, test_size=test_size, random_state=42)
 
-    scaler = StandardScaler().fit(x_train)
+    scaler = _StandardScaler().fit(x_train)
     x_train_s = scaler.transform(x_train)
     if strict_reference_scaling:
-        x_test_s = StandardScaler().fit(x_test).transform(x_test)
+        x_test_s = _StandardScaler().fit(x_test).transform(x_test)
     else:
         x_test_s = scaler.transform(x_test)
 
@@ -142,7 +212,8 @@ def classify(segments, training_classes, acceptable_classes_gdf=None,
             from .. import native
             try:
                 shap_values = native.tree_shap_forest(
-                    classifier.sklearn_model, np.asarray(x_train_s))
+                    classifier.trees_, len(classifier.classes_),
+                    np.asarray(x_train_s))
             except RuntimeError:
                 method_for_shap = "kernel"
             else:
@@ -166,7 +237,6 @@ def classify(segments, training_classes, acceptable_classes_gdf=None,
     report = None
     cm = None
     if compute_reports:
-        from sklearn.metrics import classification_report, confusion_matrix
         y_pred = classifier.predict(x_test_s)
         cm = confusion_matrix(y_test, y_pred)
         report = classification_report(y_test, y_pred)
@@ -184,7 +254,7 @@ def classify(segments, training_classes, acceptable_classes_gdf=None,
             "training table was built with")
     x_pred = x_pred.reindex(columns=feature_cols).astype(np.float64)
     if strict_reference_scaling:
-        x_pred_s = StandardScaler().fit(x_pred).transform(x_pred)
+        x_pred_s = _StandardScaler().fit(x_pred).transform(x_pred)
     else:
         x_pred_s = scaler.transform(x_pred)
 

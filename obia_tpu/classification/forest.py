@@ -3,23 +3,30 @@
 The reference classifies one object at a time through sklearn
 (``classifier.predict_proba([x_pred[idx]])`` in a Python loop — reference
 classify.py:135-158, hot loop #3). Here the forest is fitted on host
-(sklearn, tiny tables — SURVEY.md §7 hard part #4: host fit preserves
-accuracy parity) and exported to dense arrays; inference evaluates ALL
-objects x ALL trees with level-synchronous gather/compare iterations under
-``jit`` — no Python loop, no per-row dispatch.
+(:mod:`.trees`, tiny tables — SURVEY.md §7 hard part #4) and exported to
+dense arrays; inference evaluates ALL objects x ALL trees with
+level-synchronous gather/compare iterations under ``jit`` — no Python
+loop, no per-row dispatch.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import List, Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .trees import Tree, fit_forest, forest_params
+
+
+class NotFittedError(ValueError, AttributeError):
+    """Raised by ``predict``/``predict_proba`` before ``fit`` (the same
+    bases as scikit-learn's exception of that name)."""
+
 
 class ForestArrays:
-    """Dense (n_trees, max_nodes) representation of a fitted sklearn forest."""
+    """Dense (n_trees, max_nodes) representation of a fitted forest."""
 
     def __init__(self, feature, threshold, left, right, leaf_proba, classes,
                  max_depth: int):
@@ -32,14 +39,13 @@ class ForestArrays:
         self.max_depth = max_depth
 
     @classmethod
-    def from_sklearn(cls, rf) -> "ForestArrays":
-        trees = [est.tree_ for est in rf.estimators_]
+    def from_trees(cls, trees: List[Tree], classes) -> "ForestArrays":
         T = len(trees)
         # bucket the static dims (node capacity, depth): every refit grows
-        # slightly different trees, and un-bucketed shapes recompiled the
-        # traversal program per fit (~6 s per scene on the remote chip)
-        N = -(-max(t.node_count for t in trees) // 256) * 256
-        C = len(rf.classes_)
+        # slightly different trees, and un-bucketed shapes would recompile
+        # the traversal program per fit
+        N = -(-max(len(t.feature) for t in trees) // 256) * 256
+        C = len(classes)
         feature = np.full((T, N), -1, np.int32)
         threshold = np.zeros((T, N), np.float32)
         left = np.zeros((T, N), np.int32)
@@ -47,34 +53,30 @@ class ForestArrays:
         proba = np.zeros((T, N, C), np.float32)
         max_depth = 0
         for t, tr in enumerate(trees):
-            n = tr.node_count
+            n = len(tr.feature)
             feature[t, :n] = tr.feature
             threshold[t, :n] = tr.threshold
-            lf = tr.children_left
-            rt = tr.children_right
             # leaves self-loop so extra iterations are no-ops
             idx = np.arange(n)
-            left[t, :n] = np.where(lf < 0, idx, lf)
-            right[t, :n] = np.where(rt < 0, idx, rt)
-            v = tr.value[:, 0, :].astype(np.float64)
-            rowsum = v.sum(axis=1, keepdims=True)
-            proba[t, :n] = (v / np.maximum(rowsum, 1e-12)).astype(np.float32)
-            max_depth = max(max_depth, int(tr.max_depth))
+            left[t, :n] = np.where(tr.children_left < 0, idx,
+                                   tr.children_left)
+            right[t, :n] = np.where(tr.children_right < 0, idx,
+                                    tr.children_right)
+            proba[t, :n] = tr.value
+            max_depth = max(max_depth, tr.max_depth)
         max_depth = -(-max(max_depth, 1) // 8) * 8  # bucketed (leaves
         # self-loop, so the extra traversal iterations are no-ops)
         return cls(feature, threshold, left, right, proba,
-                   np.asarray(rf.classes_), max_depth)
+                   np.asarray(classes), max_depth)
 
     def device_arrays(self):
         if not hasattr(self, "_dev"):
             T, N, C = self.leaf_proba.shape
             # ONE gather per traversal step: the four per-node tables are
-            # packed as (4, T*N) float32 rows so the payload rides the
-            # batched-gather economics (cost is per index row, not per
-            # lane — the unpacked design paid 4 separate (B,T)-row
-            # gathers per depth step and predict_proba was 0.85 s of the
-            # 1.9 s 1024^2 run). feature/left/right are exact in float32
-            # (node ids and feature ids are far below 2^24).
+            # packed as (4, T*N) float32 rows, so one (B*T)-row gather
+            # fetches a node's whole record instead of four separate
+            # gathers. feature/left/right are exact in float32 (node ids
+            # and feature ids are far below 2^24).
             packed = np.stack([
                 self.feature.astype(np.float32).reshape(-1),
                 self.threshold.reshape(-1),
@@ -82,8 +84,7 @@ class ForestArrays:
                 self.right.astype(np.float32).reshape(-1),
             ])
             # leaf distributions transposed to (C, T*N): gathers of B*T
-            # rows keep the LARGE dim minor (a (B*T, C) result would pad
-            # C to 128 lanes)
+            # rows keep the LARGE dim minor
             leafT = np.ascontiguousarray(
                 self.leaf_proba.reshape(T * N, C).T)
             self._dev = (jnp.asarray(packed), jnp.asarray(leafT))
@@ -99,7 +100,7 @@ def _forest_proba(packed, leafT, X, max_depth: int, n_trees: int,
     Level-synchronous traversal; per depth step ONE (B*T)-row gather
     fetches the packed node record and the split-feature value is read
     gather-free as a one-hot contraction over the (small) feature axis —
-    dense VPU work instead of another (B,T)-row random access.
+    dense arithmetic instead of another (B,T)-row random access.
     """
     B, F = X.shape
     T = n_trees
@@ -114,11 +115,11 @@ def _forest_proba(packed, leafT, X, max_depth: int, n_trees: int,
                        mode="clip").reshape(4, B, T)
         f, thr, l, r = rec[0], rec[1], rec[2], rec[3]
         onehot = (f[:, :, None] == fids[None, None, :]).astype(X.dtype)
-        # HIGHEST precision is load-bearing: the TPU default matmul
-        # precision rounds X to bf16 before the MXU, and the selected
-        # feature VALUE feeds the `xv <= thr` split — a 2^-9 relative
-        # rounding flips comparisons near thresholds and breaks the
-        # exact sklearn predict_proba parity on hardware
+        # HIGHEST precision is load-bearing: at the default precision a
+        # float32 matmul may round X to TF32 (10-bit mantissa), and the
+        # selected feature VALUE feeds the `xv <= thr` split — rounding
+        # flips comparisons near thresholds and breaks the exact parity
+        # with the host traversal
         xv = jnp.einsum("bf,btf->bt", X, onehot,
                         precision=jax.lax.Precision.HIGHEST)
         go_left = xv <= thr
@@ -132,11 +133,10 @@ def _forest_proba(packed, leafT, X, max_depth: int, n_trees: int,
 
 
 # fitted-forest cache: refitting the same training table with the same
-# hyper-parameters is pure recomputation (single-core sklearn fit sat on
-# the critical path of every scene — 0.84 s of the 2.14 s 1024^2 run in
-# round 2). Only DETERMINISTIC fits (random_state set) are cached; the
-# cached entry carries the exported device arrays, so a hit also skips
-# the forest upload.
+# hyper-parameters is pure recomputation on the critical path of every
+# scene. Only DETERMINISTIC fits (random_state set) are cached; the cached
+# entry carries the exported device arrays, so a hit also skips the
+# forest upload.
 _FIT_CACHE: dict = {}
 _FIT_CACHE_MAX = 8
 
@@ -156,53 +156,37 @@ def _fit_cache_key(params: dict, X: np.ndarray, y: np.ndarray):
 
 
 class JaxForestClassifier:
-    """sklearn-compatible facade: host ``fit`` (sklearn, memoised for
-    deterministic refits of the same table), device
-    ``predict_proba``/``predict`` (batched XLA)."""
+    """``RandomForestClassifier``-compatible facade: host ``fit``
+    (:func:`.trees.fit_forest`, memoised for deterministic refits of the
+    same table), device ``predict_proba``/``predict`` (batched XLA)."""
 
     def __init__(self, **kwargs):
-        from sklearn.ensemble import RandomForestClassifier
-        self._skl = RandomForestClassifier(**kwargs)
+        self._params = forest_params(**kwargs)
+        self.trees_: Optional[List[Tree]] = None
+        self.classes_ = None
         self._arrays: Optional[ForestArrays] = None
 
     def fit(self, X, y):
         X = np.asarray(X)
         y = np.asarray(y)
-        key = _fit_cache_key(self._skl.get_params(), X, y)
-        if key is not None:
-            hit = _FIT_CACHE.get(key)
-            if hit is not None:
-                self._skl, self._arrays = hit
-                return self
-        if hasattr(self._skl, "estimators_"):
-            # self._skl may ALIAS a cache entry from an earlier hit —
-            # refitting it in place would corrupt that entry (and every
-            # sibling classifier sharing it); fit a fresh estimator
-            from sklearn.base import clone
-            self._skl = clone(self._skl)
-        self._skl.fit(X, y)
-        self._arrays = ForestArrays.from_sklearn(self._skl)
-        if key is not None:
-            if len(_FIT_CACHE) >= _FIT_CACHE_MAX:
-                _FIT_CACHE.pop(next(iter(_FIT_CACHE)))
-            _FIT_CACHE[key] = (self._skl, self._arrays)
+        key = _fit_cache_key(self._params, X, y)
+        hit = _FIT_CACHE.get(key) if key is not None else None
+        if hit is None:
+            trees, classes = fit_forest(X, y, **self._params)
+            hit = (trees, classes, ForestArrays.from_trees(trees, classes))
+            if key is not None:
+                if len(_FIT_CACHE) >= _FIT_CACHE_MAX:
+                    _FIT_CACHE.pop(next(iter(_FIT_CACHE)))
+                _FIT_CACHE[key] = hit
+        self.trees_, self.classes_, self._arrays = hit
         return self
 
-    @property
-    def classes_(self):
-        return self._skl.classes_
-
-    @property
-    def sklearn_model(self):
-        return self._skl
-
     def get_params(self):
-        return self._skl.get_params()
+        return dict(self._params)
 
     def predict_proba(self, X) -> np.ndarray:
         a = self._arrays
         if a is None:
-            from sklearn.exceptions import NotFittedError
             raise NotFittedError(
                 "This JaxForestClassifier instance is not fitted yet. "
                 "Call 'fit' before using this estimator.")

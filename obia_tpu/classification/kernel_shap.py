@@ -16,8 +16,9 @@ constraint is enforced by eliminating the last free coefficient, so
 local accuracy (base + sum(phi) == f(x)) holds exactly.
 
 Model evaluations are batched: one ``predict`` call per coalition chunk
-x background — on TPU this is a handful of large device passes, not the
-per-row loop a naive implementation would make.
+x background — a handful of large device passes, not the per-row loop a
+naive implementation would make. The regression itself is float64 numpy
+on the host.
 """
 from __future__ import annotations
 

@@ -14,7 +14,7 @@ import click
 
 @click.group()
 def main():
-    """obia-tpu: TPU-native object-based image analysis."""
+    """obia-tpu: object-based image analysis on JAX."""
 
 
 @main.command("segment")

@@ -1,11 +1,12 @@
 """ResNet-50 backbone + FPN in Flax.
 
-TPU-native replacement for the torchvision ``retinanet_resnet50_fpn``
+Flax replacement for the torchvision ``retinanet_resnet50_fpn``
 backbone the reference builds (reference detection/models.py:30): bottleneck
 ResNet-50 emitting C3/C4/C5, and a feature pyramid P3-P7. Supports arbitrary
 input channel counts (the reference performs first-conv surgery for
 N-channel imagery, models.py:45-60 — here ``in_channels`` is simply a
-constructor argument). bfloat16-friendly: all convs run through the MXU.
+constructor argument). bfloat16-friendly: all convs are matrix-unit
+work.
 """
 from __future__ import annotations
 

@@ -70,9 +70,11 @@ def infer_image_array(model: DetectionModel, hwc: np.ndarray,
     return {"boxes": boxes, "scores": scores, "labels": labels}
 
 
-def predict(model: DetectionModel, image_path: str, device: str = "tpu",
+def predict(model: DetectionModel, image_path: str,
             score_threshold: float = 0.5,
             nms_threshold: float = 0.5) -> Dict[str, np.ndarray]:
+    """Detections on one raster (the reference's ``device`` argument is
+    gone — JAX runs on its default device)."""
     image_array = TiffReader(image_path).read()
 
     data_min = float(image_array.min())

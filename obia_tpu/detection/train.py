@@ -75,9 +75,11 @@ def _make_train_step(model: DetectionModel, tx):
 
 
 def train_model(model: DetectionModel, train_loader, num_epochs: int,
-                device: str = "tpu", checkpoint_dir: str = None):
+                checkpoint_dir: str = None):
     """Train (reference train.py:11-50 semantics: Adam 1e-4, per-epoch
-    average loss printed, trained model returned). ``checkpoint_dir``
+    average loss printed, trained model returned; the reference's
+    ``device`` argument is gone — JAX runs on its default device).
+    ``checkpoint_dir``
     saves params+batch_stats per epoch (the reference never checkpoints —
     SURVEY.md §5)."""
     tx = optax.adam(1e-4)

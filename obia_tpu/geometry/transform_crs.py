@@ -13,7 +13,7 @@ Math: Karney, "Transverse Mercator with an accuracy of a few
 nanometers" (J. Geod. 85, 2011) — the standard Krueger series in the
 third flattening n, 6th order (max error ~nm within a UTM zone). All
 functions are vectorised numpy; the host-side vector tables this feeds
-are small, so there is no value in staging them through the TPU.
+are small, so there is no value in staging them through the device.
 """
 from __future__ import annotations
 

@@ -22,7 +22,6 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import numpy as np
-from PIL.Image import fromarray
 
 from ..geometry.affine import Affine
 from ..geometry.crs import CRS
@@ -63,7 +62,7 @@ class Image:
     def device_array(self):
         """The raster as a device-resident float32 jnp array, uploaded ONCE
         and cached — every downstream stage (segmentation, statistics,
-        GLCM) reuses it, so the host→HBM transfer is paid a single time.
+        GLCM) reuses it, so the host→device transfer is paid a single time.
         When the source raster has a narrow dtype (uint8/uint16) the upload
         ships the NATIVE bytes and casts to float32 on device — a 2-4x
         transfer saving. (img_data is never mutated by this framework —
@@ -126,6 +125,7 @@ class Image:
             rgb8 = apply_clahe(rgb8)
         elif stretch_type is not None:
             raise ValueError(f"Unknown stretch_type: {stretch_type}")
+        from PIL.Image import fromarray
         return fromarray(rgb8.astype(np.uint8))
 
 

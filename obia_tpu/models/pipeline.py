@@ -125,7 +125,7 @@ def make_sharded_train_step(mesh: Mesh, H: int, W: int, C: int,
     """Full training step over the mesh:
 
     * raster 2-D sharded over ("ty", "tx") — segmentation + object
-      statistics with psum center/moment reductions (ICI traffic only),
+      statistics with psum center/moment reductions (collectives only),
     * classifier head trained data-parallel: each device grads its own
       slice of the object batch, gradients psum across the mesh,
       optax SGD update applied replicated.

@@ -1,8 +1,8 @@
 """Native (C++) host-runtime kernels, bound via ctypes.
 
-Builds ``src/obia_native.cpp`` on first import (cached as a shared object
-next to the source). Compiler-less installs still work: the hot-path
-entry points (polygonize/union-find/relabel) return None and their
+Builds ``src/obia_native.cpp`` on first use (cached as a shared object
+next to the source, which git does not track). Compiler-less installs
+still work: the hot-path entry points (polygonize/union-find/relabel) return None and their
 callers use the numpy/JAX implementations, and ``classify()`` falls back
 from TreeSHAP to the built-in Kernel SHAP; only a DIRECT call to
 ``tree_shap_forest``/``host_ccl`` raises a clear RuntimeError. See the
@@ -27,14 +27,18 @@ _build_error: Optional[str] = None
 
 
 def _build() -> Optional[str]:
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o",
-           _LIB_PATH, _SRC]
+    # build under a temporary name and rename into place: concurrent
+    # processes (test workers on a fresh checkout) may build at once, and
+    # none of them may load a half-written library
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", tmp, _SRC]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
-    except Exception as e:  # compiler missing etc.
+    except (OSError, subprocess.SubprocessError) as e:  # compiler missing
         return str(e)
     if res.returncode != 0:
         return res.stderr[:2000]
+    os.replace(tmp, _LIB_PATH)
     return None
 
 
@@ -271,37 +275,30 @@ def polygonize_rings_packed(labels: np.ndarray, simplify: bool = True):
     return _collect_rings_packed(lib, h)
 
 
-def tree_shap_forest(rf, X: np.ndarray) -> np.ndarray:
-    """Path-dependent TreeSHAP for a fitted sklearn RandomForestClassifier
-    (native replacement for shap.TreeExplainer — reference
-    classify.py:104-115). Returns (n_samples, n_features, n_classes)
-    attributions to the predicted class probabilities."""
+def tree_shap_forest(trees, n_classes: int, X: np.ndarray) -> np.ndarray:
+    """Path-dependent TreeSHAP for a fitted forest (a list of
+    :class:`obia_tpu.classification.trees.Tree`; native replacement for
+    shap.TreeExplainer — reference classify.py:104-115). Returns
+    (n_samples, n_features, n_classes) attributions to the predicted class
+    probabilities."""
     lib = _load()
     if lib is None:
         raise RuntimeError(f"native library unavailable: {_build_error}")
     X = np.ascontiguousarray(X, np.float64)
     n_samples, n_features = X.shape
-    n_classes = len(rf.classes_)
     phi_total = np.zeros((n_samples, n_features + 1, n_classes), np.float64)
     phi = np.empty_like(phi_total)
-    n_trees = len(rf.estimators_)
     pd = ctypes.POINTER(ctypes.c_double)
-    for est in rf.estimators_:
-        t = est.tree_
-        n = t.node_count
+    for t in trees:
+        n = len(t.feature)
         feature = np.ascontiguousarray(t.feature, np.int32)
-        # sklearn thresholds are float64 midpoints of adjacent float32
-        # feature values — a float32 downcast can flip x <= threshold
-        # on boundary samples and attribute the wrong leaf
         threshold = np.ascontiguousarray(t.threshold, np.float64)
         idx = np.arange(n, dtype=np.int32)
         left = np.where(t.children_left < 0, idx,
                         t.children_left).astype(np.int32)
         right = np.where(t.children_right < 0, idx,
                          t.children_right).astype(np.int32)
-        v = t.value[:, 0, :].astype(np.float64)
-        v = v / np.maximum(v.sum(axis=1, keepdims=True), 1e-12)
-        v = np.ascontiguousarray(v)
+        v = np.ascontiguousarray(t.value, np.float64)
         cover = np.ascontiguousarray(t.weighted_n_node_samples, np.float64)
         phi.fill(0.0)
         lib.tree_shap(_p32(feature),
@@ -313,7 +310,7 @@ def tree_shap_forest(rf, X: np.ndarray) -> np.ndarray:
                       phi.ctypes.data_as(pd),
                       int(t.max_depth) + 1)
         phi_total += phi
-    return phi_total[:, :n_features, :] / n_trees
+    return phi_total[:, :n_features, :] / len(trees)
 
 
 def merge_small_capped(labels: np.ndarray, min_size: int,

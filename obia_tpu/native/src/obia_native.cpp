@@ -1,6 +1,6 @@
 // obia_tpu native runtime kernels (host side).
 //
-// The TPU compute path is JAX/XLA/Pallas; this module provides the native
+// The device compute path is JAX/XLA; this module provides the native
 // host-side runtime pieces that the reference delegates to GDAL/Cython
 // (SURVEY.md §2b): sparse union-find component resolution, dense
 // relabelling (raster-order first occurrence), host CCL, size-capped

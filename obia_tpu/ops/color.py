@@ -11,10 +11,10 @@ import jax
 import jax.numpy as jnp
 
 # sRGB -> XYZ (D65) matrix
-_M = jnp.asarray([[0.412453, 0.357580, 0.180423],
-                  [0.212671, 0.715160, 0.072169],
-                  [0.019334, 0.119193, 0.950227]], jnp.float32)
-_WHITE = jnp.asarray([0.95047, 1.0, 1.08883], jnp.float32)
+_M = ((0.412453, 0.357580, 0.180423),
+      (0.212671, 0.715160, 0.072169),
+      (0.019334, 0.119193, 0.950227))
+_WHITE = (0.95047, 1.0, 1.08883)
 
 
 @jax.jit
@@ -24,8 +24,12 @@ def rgb_to_lab(rgb: jnp.ndarray) -> jnp.ndarray:
     linear = jnp.where(rgb > 0.04045,
                        ((rgb + 0.055) / 1.055) ** 2.4,
                        rgb / 12.92)
-    xyz = linear @ _M.T
-    xyz_n = xyz / _WHITE
+    # per-channel weighted sums, not a matmul: a float32 matmul may run
+    # in TF32 at the default precision, which moves Lab values by ~1e-3
+    # and with them SLIC's assignments
+    r, g, b = linear[..., 0], linear[..., 1], linear[..., 2]
+    xyz_n = jnp.stack([(m[0] * r + m[1] * g + m[2] * b) / wp
+                       for m, wp in zip(_M, _WHITE)], axis=-1)
     eps = 0.008856
     kappa = 903.3
     f = jnp.where(xyz_n > eps, jnp.cbrt(xyz_n),

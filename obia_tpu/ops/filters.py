@@ -1,6 +1,6 @@
 """Raster filters as XLA programs (conv / reduce_window).
 
-TPU-native replacements for the scipy.ndimage / skimage.rank kernels the
+Device replacements for the scipy.ndimage / skimage.rank kernels the
 reference leans on (SURVEY.md §2b): gaussian_filter (seeds.py:17-33),
 maximum_filter (seeds.py:20), uniform_filter (image.py:106-107), sobel
 (cost.py:30-31), windowed-histogram entropy (cost.py:39-41, skimage

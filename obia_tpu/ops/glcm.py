@@ -56,17 +56,6 @@ def _shift_pairs(arr: jnp.ndarray, dr: int, dc: int, fill):
     return _shift2d(arr, dr, dc, fill)
 
 
-def quant_inv(rng: jnp.ndarray, levels: int) -> jnp.ndarray:
-    """(levels-1)/range with the constant-object -> 0 rule folded in
-    (an inverse of 0 maps every value to level 0). Computed ONCE per
-    object in the K domain so every consumer — the scatter path's
-    per-pixel gather and the Pallas kernel's per-job scalar prefetch —
-    multiplies by the IDENTICAL f32 value."""
-    return jnp.where(rng > 0,
-                     jnp.float32(levels - 1) / jnp.where(rng > 0, rng, 1.0),
-                     0.0)
-
-
 def scale_quantise(vals: jnp.ndarray, mn_px: jnp.ndarray,
                    rng_px: jnp.ndarray, levels: int) -> jnp.ndarray:
     """Per-pixel min-max scaling to [0, levels-1] (floor semantics,
@@ -74,14 +63,29 @@ def scale_quantise(vals: jnp.ndarray, mn_px: jnp.ndarray,
     single-device path and the sharded mesh path so the two can never
     drift (reference semantics: segment_statistics.py:256-260).
 
-    Formulated as subtract -> multiply-by-precomputed-inverse: subtract,
-    multiply and floor are exact IEEE f32 ops with identical results in
-    XLA and inside a Mosaic (Pallas) kernel, whereas a per-pixel division
-    is NOT guaranteed to round identically across the two compilers — the
-    division-form kernel measured a ~1.6e-3 contrast drift on hardware
-    (occasional level flips at bin boundaries)."""
-    scaled = (vals - mn_px) * quant_inv(rng_px, levels)
-    return jnp.clip(jnp.floor(scaled), 0, levels - 1).astype(jnp.int32)
+    The level of d = vals - min is the q with
+    q * range <= d * (levels-1) < (q+1) * range, each product rounded to
+    float32 — on integer rasters (d * (levels-1) < 2^24) that is exactly
+    floor(d * (levels-1) / range). See :func:`_levels_from_inverse`."""
+    has = rng_px > 0
+    safe = jnp.where(has, rng_px, 1.0)
+    inv = jnp.float32(levels - 1) / safe
+    return _levels_from_inverse(vals - mn_px, safe, has, inv, levels)
+
+
+def _levels_from_inverse(d, rng, has, inv, levels: int) -> jnp.ndarray:
+    """Levels from d * inv, corrected by one step to satisfy the product
+    inequality of :func:`scale_quantise`. The inverse only has to be
+    within a few ulp: a float32 division may round differently on another
+    backend (on the GPU it is not the CPU's correctly rounded one), and
+    on integer rasters every exact-integer quotient (d * (levels-1) a
+    multiple of the range) would otherwise flip a level with it."""
+    top = jnp.float32(levels - 1)
+    q = jnp.floor(d * inv)
+    num = d * top
+    q = (q + ((q + 1.0) * rng <= num).astype(q.dtype)
+         - (q * rng > num).astype(q.dtype))
+    return jnp.clip(jnp.where(has, q, 0.0), 0, levels - 1).astype(jnp.int32)
 
 
 def pair_sum_rows(l1: jnp.ndarray, q2, v) -> list:
@@ -128,9 +132,8 @@ def quantize_per_segment(band: jnp.ndarray, labels: jnp.ndarray,
     lab_safe = jnp.where(ok, lab, num_segments)
     big = jnp.asarray(jnp.finfo(band.dtype).max, band.dtype)
     # min and max in ONE batched scatter (max rides as min of -band),
-    # via the chunked helper: an unchunked (2, N) vmapped scatter makes
-    # XLA materialise the update copy as (N, 2) with the minor dim padded
-    # to 128 lanes — 51 GB at 100 MP
+    # via the chunked helper: an unchunked (2, N) vmapped scatter lets
+    # XLA materialise the whole update copy as (N, 2) at once
     both = _batched_segment_reduce(
         [jnp.where(ok, flat, big), jnp.where(ok, -flat, big)],
         lab_safe, num_segments + 1, jax.ops.segment_min)   # (K+1, 2)
@@ -139,8 +142,7 @@ def quantize_per_segment(band: jnp.ndarray, labels: jnp.ndarray,
     rng = mx - mn
     lab_c = jnp.clip(lab, 0, num_segments - 1)
     # ONE payload-batched gather for (min, range) — two independent
-    # (N,)-row gathers cost 2x at the ~100 M index-rows/s random-access
-    # rate (~2 s/band of the 100 MP GLCM stage); lanes are ~free
+    # (N,)-row gathers pay the random-access cost twice
     rec = jnp.take(jnp.stack([mn, rng]), lab_c, axis=1)  # (2, N)
     q = scale_quantise(flat, rec[0], rec[1], levels)
     return q.reshape(band.shape)
@@ -155,7 +157,7 @@ def _asm_sumsq(seg_key: jnp.ndarray, pair_key: jnp.ndarray,
     Returns (K,) float32 of sum-of-squared counts per segment.
 
     When the fused key (segment, pair) fits 31 bits, a single-operand sort
-    is used (markedly faster on TPU than the lexicographic two-key sort).
+    is used (cheaper than the lexicographic two-key sort).
     """
     M = seg_key.shape[0]
     L = int(math.isqrt(sentinel_pk))
@@ -223,12 +225,11 @@ def segment_glcm_props_packed(image: jnp.ndarray,
                               bands: Optional[Tuple[int, ...]] = None):
     """All props for all bands with ONE host transfer:
     (GLCM_PROP_NAMES, (6, K, B) numpy). At small scale every band runs in
-    ONE device program (remote dispatch round trips dominate there); at
-    large scale each band is its own program (a band-fused program's sort
-    temporaries OOM-kill the TPU compiler at ≥16 MP). Per-(band, prop)
+    ONE device program (dispatch overhead dominates there); at large scale
+    each band is its own program (a band-fused program's sort temporaries
+    ran the compiler out of memory at ≥16 MP). Per-(band, prop)
     device-side ``[:K]`` trims would cost an eager dispatch each (48 of
-    them at 8 bands ≈ 1.5 s of round trips at 100 MP) — everything packs
-    device-side and trims on host."""
+    them at 8 bands) — everything packs device-side and trims on host."""
     levels = _check_levels(levels)
     if not jnp.issubdtype(jnp.asarray(image).dtype, jnp.floating):
         # integer rasters (uint16 satellite bands) would crash jnp.finfo
@@ -250,23 +251,10 @@ def segment_glcm_props_packed(image: jnp.ndarray,
     # data-dependent K jitter between scenes and the hot program can be
     # compile-warmed ahead of time (ops.stats.pad_num_segments)
     #
-    # MXU histogram path (big scenes, compact objects): the per-object
-    # joint histograms accumulate via one-hot matmuls in a Pallas kernel
-    # instead of N-row scatters — see ops.glcm_pallas. Exact (integer
-    # counts), and in fact closer to the float64 oracle than the f32
-    # scatter accumulation.
-    from .glcm_pallas import use_pallas_glcm
-    if use_pallas_glcm(H * W, num_segments, levels, distance, angles):
-        out = _glcm_pallas_packed(image, labels, num_segments, K_pad,
-                                  levels, distance, angles, compute_asm,
-                                  band_ids)
-        if out is not None:
-            return GLCM_PROP_NAMES, out
-    #
     # three programs per scene: (1) ALL bands quantised at once — the
     # per-band min/max scatters and (min, range) lookups share one label
     # index, so batching them across bands divides that cost by B
-    # (scatter/gather cost is per INDEX ROW; payload lanes are ~free);
+    # (scatter/gather cost is dominated by the index rows);
     # (2) the per-angle label-validity stack, which depends only on the
     # labels and was previously recomputed identically for every band;
     # (3) the GLCM proper, one program reused across bands (equal shapes)
@@ -283,107 +271,26 @@ def segment_glcm_props_packed(image: jnp.ndarray,
     return GLCM_PROP_NAMES, np.moveaxis(packed, 0, 2)[:, :num_segments]
 
 
-@functools.partial(jax.jit, static_argnames=("num_segments", "band_ids"))
-def _bbox_minmax(image: jnp.ndarray, labels: jnp.ndarray,
-                 num_segments: int, band_ids: Tuple[int, ...]):
-    """Per-segment bboxes AND every texture band's quantisation bounds in
-    ONE batched scatter — the (4 + 2B) payload rows share the label index
-    vector, so this costs the same as the bbox scatter alone (TPU scatter
-    cost is per index row). Row expressions are built PER ROW-RANGE
-    CHUNK from raster slices: handing full-raster lazy rows to the
-    chunked scatter helper let XLA materialise all 20 100 M-element
-    select fusions concurrently (17.43 GiB — over per-chip HBM at the
-    north-star scene), while chunk-built rows keep only ~one chunk's
-    temps live inside the accumulator-serialised scatter chain.
-    Returns (K+1, 4 + 2B) packed mins ([r, -r, c, -c, v_b, -v_b, ...]);
-    the bbox columns decode on host (build_jobs), the min/range columns
-    stay on device and feed the kernel's fused quantiser."""
-    from .stats import _reduce_init, _row_ranges, _scatter_rows_into
-    H, W = labels.shape
-    K = num_segments
-    F = 4 + 2 * len(band_ids)
-    big = jnp.float32(3e38)
-    acc = _reduce_init(F, K + 1, jnp.float32, "min")
-    for h0, h1 in _row_ranges(H, W):
-        lab_c = labels[h0:h1].reshape(-1)
-        ok = lab_c >= 0
-        seg_c = jnp.where(ok, lab_c, K)
-        n = (h1 - h0) * W
-        r = (jax.lax.broadcasted_iota(jnp.float32, (h1 - h0, W), 0)
-             + jnp.float32(h0)).reshape(-1)
-        c = jax.lax.broadcasted_iota(jnp.float32, (h1 - h0, W), 1) \
-            .reshape(-1)
-        rows = [jnp.where(ok, r, big), jnp.where(ok, -r, big),
-                jnp.where(ok, c, big), jnp.where(ok, -c, big)]
-        for b in band_ids:
-            v = image[h0:h1, :, b].reshape(-1)
-            rows.append(jnp.where(ok, v, big))
-            rows.append(jnp.where(ok, -v, big))
-        acc = _scatter_rows_into(acc, rows, seg_c, "min")
-    return acc.T
-
-
-def _glcm_pallas_packed(image, labels, num_segments: int, K_pad: int,
-                        levels: int, distance: int, angles,
-                        compute_asm: bool, band_ids):
-    """(6, K, B) via the Pallas MXU histogram kernel (ops.glcm_pallas),
-    or None if the real job count says the scatter path wins after all.
-    Quantisation happens INSIDE the kernel (the expression mirrors
-    scale_quantise term for term, so levels match the scatter path
-    bitwise); the global quantise stage and its per-pixel packed gather
-    are gone — the only full-raster pass left is the single fused
-    bbox+min/max scatter."""
-    from . import glcm_pallas as gp
-    H, W = labels.shape
-    B = len(band_ids)
-    mins = _bbox_minmax(image, labels, K_pad, tuple(band_ids))
-    bbox_host = np.asarray(mins[:, :4])                    # one tiny pull
-    bboxes = np.empty((K_pad, 4), np.int32)
-    empty = bbox_host[:K_pad, 0] >= 2e38
-    bboxes[:, 0] = np.where(empty, 1, bbox_host[:K_pad, 0]).astype(np.int32)
-    bboxes[:, 1] = np.where(empty, 0, -bbox_host[:K_pad, 1]).astype(np.int32)
-    bboxes[:, 2] = np.where(empty, 1, bbox_host[:K_pad, 2]).astype(np.int32)
-    bboxes[:, 3] = np.where(empty, 0, -bbox_host[:K_pad, 3]).astype(np.int32)
-    meta, rc, n_jobs = gp.build_jobs(bboxes)
-    if not gp.pallas_profitable(n_jobs, H * W, angles):
-        return None
-    mn_all = mins[:K_pad, 4::2].T                          # (B, K)
-    inv_all = quant_inv(-mins[:K_pad, 5::2].T - mn_all, levels)
-    Hp, Wp = gp.padded_shape(H, W)
-    lab_pad = gp.pad_labels(labels, Hp, Wp)
-    jobs = (jnp.asarray(meta), jnp.asarray(rc))
-    outs = []
-    for i, b in enumerate(band_ids):
-        band_pad = gp.pad_band_f32(image, jnp.int32(b), Hp, Wp)
-        sums_A, asm_A = gp.glcm_pallas_band(band_pad, lab_pad, jobs,
-                                            mn_all[i], inv_all[i], K_pad,
-                                            distance, tuple(angles),
-                                            valid_hw=(H, W), levels=levels)
-        if not compute_asm:
-            asm_A = jnp.full_like(asm_A, jnp.nan)
-        outs.append(_glcm_props_from_sums(sums_A, asm_A, compute_asm))
-    packed = np.asarray(jnp.stack(outs))  # (B, 6, K_pad), one download
-    return np.moveaxis(packed, 0, 2)[:, :num_segments]
-
-
 # above this (pixels x bands) count, bands run as separate device programs
-# (per-program round trips cost less than a compiler OOM at 100 MP)
+# (a few more dispatches cost less than a compiler out of memory at
+# 100 MP)
 _FUSE_BANDS_MAX_ELEMS = 1 << 24
 
 # above this segment count the band-fused / all-angles-one-scatter
-# branches split up even on small scenes: XLA lays the stacked (F, N)
-# scatter payloads out FEATURE-MINOR in the big-K programs (each (1, N)
-# row copy padded 128x to 512 MB at 1 MP), and the fused config-2
-# program (3 bands x 4 angles x 7 rows, K=54k) scheduled ~72 of those
-# concurrently — 36.9 GB at compile time, invisible to every CPU test.
-# Per-band programs with per-angle scans keep the copies transient.
+# branches split up even on small scenes: XLA may lay the stacked (F, N)
+# scatter payloads out FEATURE-MINOR in the big-K programs, and the fused
+# config-2 program (3 bands x 4 angles x 7 rows, K=54k) then scheduled
+# ~72 padded row copies concurrently — out of device memory at compile
+# time, invisible to every CPU test. Per-band programs with per-angle
+# scans keep the copies transient.
 _FUSE_BANDS_MAX_K = 1 << 14
 
 # joint-histogram ASM path: per-(segment, pair) counts scattered into a
 # (K, levels^2) table — ONE N-row scatter per angle yields ALL six props
 # (weighted reductions over the table), replacing both the 7-row feature
 # scatter and the O(N log N) sort per angle. Only viable while the table
-# fits HBM comfortably and the scatter dominates the table traffic.
+# fits device memory comfortably and the scatter dominates the table
+# traffic.
 _ASM_HIST_MAX_ELEMS = 1 << 28
 
 
@@ -413,9 +320,9 @@ def _glcm_bands(image: jnp.ndarray, labels: jnp.ndarray, num_segments: int,
 def _band_select(image: jnp.ndarray, band_idx) -> jnp.ndarray:
     """Band plane as a sum of unrolled minor-dim slices (the pattern the
     k-means assignment proves safe at 100 MP). A channel-axis reduce or
-    a leading-axis transpose both make XLA materialise a channel-minor
-    copy (C padded to 128 lanes — 51 GB at 100 MP); per-channel slices
-    fuse cleanly. ``band_idx`` may be traced."""
+    a leading-axis transpose may make XLA materialise a padded
+    channel-minor copy; per-channel slices fuse cleanly. ``band_idx`` may
+    be traced."""
     C = image.shape[2]
     out = image[..., 0] * (band_idx == 0)
     for c in range(1, C):
@@ -437,8 +344,8 @@ def _quantize_bands(image: jnp.ndarray, labels: jnp.ndarray,
     The row-range loop threads chunks through the output accumulator so
     only ~one chunk's gather temp is ever live (the 100 MP discipline of
     ops.stats._segment_spectral_moments). Per-channel minor-dim slices
-    are used throughout — stacked (C, N) image-derived arrays get laid
-    out channel-minor with C padded to 128 lanes (51 GB at 100 MP)."""
+    are used throughout — stacked (C, N) image-derived arrays may be laid
+    out channel-minor with C padded."""
     from .stats import _batched_segment_reduce, _row_ranges
     H, W = labels.shape
     K = num_segments
@@ -543,7 +450,7 @@ def _glcm_from_q(q_u8: jnp.ndarray,
 
     Args:
       q_u8: (H, W) uint8 per-object quantised levels (uint8 stacks keep
-        the 100 MP program inside HBM — int32 stacks alone are 3 GB).
+        the 100 MP program small — int32 stacks alone are 3 GB).
       labels: (H, W) int32, -1 = masked out.
       num_segments: static K.
       valid_stack: optional precomputed (A, N) bool per-angle validity
@@ -578,10 +485,9 @@ def _glcm_from_q(q_u8: jnp.ndarray,
     # ---- all angles' pairwise sums in ONE batched scatter -----------------
     # every row is keyed by the CENTER pixel's own label (invalid pairs
     # contribute 0 through w=0), so the 7*A rows share one index vector
-    # and the scatter costs the same as a single row (index handling
-    # dominates TPU scatter; measured (28,N) == (7,N) == (1,N)). Above
-    # ~16 MP the 4 angles' live f32 temps exceed HBM, so the sums move
-    # into a per-angle scan instead (transient temps per iteration).
+    # and the index handling is paid once. Above ~16 MP the 4 angles'
+    # live f32 temps grow too large, so the sums move into a per-angle
+    # scan instead (transient temps per iteration).
     key = jnp.where(lab_flat >= 0, lab_flat, K)
     l1 = q_flat.astype(jnp.float32)
 
@@ -650,8 +556,8 @@ def _glcm_hist_angles(q_flat, q2_stack, valid_stack, lab_flat,
     """All-props-from-histogram path: per angle, ONE N-row scatter builds
     the (K, L^2) joint co-occurrence count table; the seven pairwise sums
     AND the exact symmetric-ASM sum-of-squares are then weighted
-    reductions over the table (a (K, L^2) x (L^2, 8) matmul — HBM-bound,
-    milliseconds). Replaces the 7-row feature scatter + O(N log N) sort
+    reductions over the table (a (K, L^2) x (L^2, 8) matmul, bound by
+    memory bandwidth). Replaces the 7-row feature scatter + O(N log N) sort
     per angle of the small-scene path; exact, not approximate.
 
     Returns (sums_A (A, K, 7), asm_A (A, K))."""
@@ -668,13 +574,11 @@ def _glcm_hist_angles(q_flat, q2_stack, valid_stack, lab_flat,
         hist = jax.ops.segment_sum(
             v.astype(jnp.float32), key,
             num_segments=table + 1)[:table].reshape(K, L * L)
-        # HIGHEST precision is load-bearing: the TPU's default matmul
-        # precision feeds bf16-rounded operands to the MXU, and the
-        # moment weights (i+j up to 510, i*j up to 65025) do not fit
-        # bf16's 8-bit significand — measured on-chip, the default
-        # precision put per-object correlation off by O(1) (mu^2 error
-        # ~350 vs covariance ~1) and contrast off ~2e-3 systematically.
-        # The reduction is milliseconds either way (HBM-bound).
+        # HIGHEST precision is load-bearing: at the default precision a
+        # float32 matmul may round its operands to TF32 (10-bit
+        # mantissa), and neither the counts nor the moment weights (d^2
+        # up to 65025) fit it — correlation, a difference of moments,
+        # would move at O(1) and contrast at ~1e-3.
         sums8 = jnp.dot(hist, W8,
                         precision=jax.lax.Precision.HIGHEST)  # (K, 8)
         if compute_asm:

@@ -23,7 +23,7 @@ Everything is one vectorised pass: points → pixel via the inverse
 affine, segment id via the label raster, per-segment reductions via
 ``np.bincount``. Point clouds are ragged and typically orders of
 magnitude smaller than the raster, so this runs on host; the raster
-work stays on TPU.
+work stays on the device.
 """
 from __future__ import annotations
 

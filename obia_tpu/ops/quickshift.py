@@ -1,6 +1,6 @@
 """Quickshift mode-seeking segmentation as an XLA program.
 
-TPU-native re-design of the Cython quickshift the reference calls
+Array-program re-design of the Cython quickshift the reference calls
 (``skimage.segmentation.quickshift`` at reference segment_boundaries.py:49):
 
 * Parzen density estimate: ``lax.scan`` over all window offsets, each step a
@@ -183,22 +183,9 @@ def quickshift(image,
     # max_dist — a max_dist-sized window would link pixels skimage
     # leaves as roots whenever max_dist > 3*kernel_size
     radius_p = radius_d
-    from .quickshift_pallas import quickshift_core_pallas, \
-        use_pallas_quickshift
-    # the Pallas kernel scans ONE window radius; it is only equivalent to
-    # the XLA path while the density and parent radii coincide (they do,
-    # by the skimage-semantics argument above — but fail loudly rather
-    # than silently diverge if that choice is ever revisited)
-    if use_pallas_quickshift(H * W) and radius_p == radius_d:
-        # VMEM-resident window scan: the XLA chunk-scan re-reads the
-        # raster from HBM once per offset (960x at kernel_size=5)
-        root, _, parent, dist = quickshift_core_pallas(
-            img, noise, float(kernel_size), float(max_dist), float(ratio),
-            radius_d)
-    else:
-        root, _, parent, dist = _quickshift_core(
-            img, noise, float(kernel_size), float(max_dist), float(ratio),
-            radius_d, radius_p)
+    root, _, parent, dist = _quickshift_core(
+        img, noise, float(kernel_size), float(max_dist), float(ratio),
+        radius_d, radius_p)
     root_np = np.asarray(root)
     uniq, first_idx, inv = np.unique(root_np.reshape(-1), return_index=True,
                                      return_inverse=True)

@@ -1,10 +1,12 @@
 """Multi-host initialisation + process-level helpers.
 
 The reference has no distributed backend at all (SURVEY.md §2c). For
-multi-host TPU slices this wraps ``jax.distributed.initialize`` and exposes
-the process topology; raster work shards over ICI within a slice via
-:mod:`obia_tpu.parallel.sharded`, while DCN carries only tile manifests and
-merged label-equivalence tables (see SURVEY.md §5).
+multi-host runs this wraps ``jax.distributed.initialize`` and exposes the
+process topology; raster work shards over the devices of a host via
+:mod:`obia_tpu.parallel.sharded`, while the network between hosts carries
+only tile manifests and merged label-equivalence tables (see SURVEY.md §5).
+Outside a cluster manager that JAX detects (Slurm, Open MPI), a multi-host
+run passes the coordinator address, process count and process id.
 """
 from __future__ import annotations
 
@@ -22,14 +24,13 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Initialise multi-host JAX. No-ops on single-process setups and when
     already initialised; arguments fall back to the standard env vars /
-    TPU metadata autodetection."""
+    the cluster manager's autodetection."""
     global _initialized
     if _initialized:
         return
     if (coordinator_address is None
             and "JAX_COORDINATOR_ADDRESS" not in os.environ
             and num_processes is None
-            and not _pod_metadata_present()
             and not _cluster_env_present()):
         # single host; nothing to do. NOTE: this guard must not touch
         # jax.process_count()/jax.devices() — any backend probe
@@ -40,21 +41,6 @@ def initialize(coordinator_address: Optional[str] = None,
                                num_processes=num_processes,
                                process_id=process_id)
     _initialized = True
-
-
-def _pod_metadata_present() -> bool:
-    """True on multi-host TPU pods, where ``jax.distributed.initialize()``
-    can autodetect everything from the TPU metadata — calling it there is
-    REQUIRED (otherwise every host sees only its local chips and scale-out
-    silently degrades to per-host work). Detection must be conservative:
-    single-host TPU VMs also export ``TPU_WORKER_HOSTNAMES`` (with ONE
-    entry), and an unconditional initialize() there would demand a
-    coordinator address — so only a MULTI-entry worker list or an
-    explicit megascale coordinator counts."""
-    hosts = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-    if len([h for h in hosts.split(",") if h.strip()]) > 1:
-        return True
-    return "MEGASCALE_COORDINATOR_ADDRESS" in os.environ
 
 
 def _cluster_env_present() -> bool:

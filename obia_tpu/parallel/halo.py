@@ -1,8 +1,8 @@
 """Halo exchange over the device mesh (``lax.ppermute`` boundary strips).
 
-SURVEY.md §5: the TPU-native answer to the reference's overlap-buffer
+SURVEY.md §5: the device-mesh answer to the reference's overlap-buffer
 re-reads (tiling.py:155-287) is exchanging boundary strips between mesh
-neighbours over ICI. SLIC assignment itself needs no halo (centers are
+neighbours. SLIC assignment itself needs no halo (centers are
 replicated), but neighbourhood-coupled kernels do — the sharded GLCM
 exchanges ``distance``-deep halos so cross-seam pixel pairs are counted
 exactly (:func:`obia_tpu.parallel.sharded.sharded_glcm_props` /
@@ -22,7 +22,7 @@ import jax.numpy as jnp
 def exchange_halo_rows(x: jnp.ndarray, axis_name: str) -> Tuple[jnp.ndarray,
                                                                 jnp.ndarray]:
     """Inside shard_map: send the first/last row strip to the previous/next
-    shard along ``axis_name`` (ring ppermute over ICI). Returns
+    shard along ``axis_name`` (ring ppermute). Returns
     (row_from_prev, row_from_next), each shaped (1, W...). Edge shards
     receive the wrapped-around strip; callers mask it with the axis index.
     """

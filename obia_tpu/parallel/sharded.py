@@ -2,12 +2,12 @@
 
 The reference has no distributed layer at all (SURVEY.md §2c) — its only
 scale-out is the sequential checkerboard tile loop (reference
-tiling.py:62-291). This module is the TPU-native replacement: the raster
+tiling.py:62-291). This module is the device-mesh replacement: the raster
 shards 2-D over a ``jax.sharding.Mesh`` ("ty", "tx") and EVERY device
 stage of the production pipeline runs sharded:
 
 * k-means: centers replicated (tiny), per-shard assignment + partial
-  sums, ``psum`` over ICI (:func:`sharded_slic_assign`). Assignment needs
+  sums, ``psum`` across devices (:func:`sharded_slic_assign`). Assignment needs
   NO halo exchange (a pixel's candidate centers depend only on its own
   global coordinates).
 * connectivity: per-shard scan-CCL + per-shard dense relabel, then the
@@ -262,8 +262,8 @@ def _apply_lut(gid: jnp.ndarray, lut: jnp.ndarray) -> jnp.ndarray:
 def _merge_edges_factory(mesh: Mesh, K_pad: int):
     """The device stage of :func:`sharded_merge_small`: per-shard sizes
     (psum'd), label-adjacency edge lists, and the four seam strips.
-    Exposed as a factory so tools/compile_check_v5e8.py can AOT-compile
-    it at north-star shapes."""
+    Exposed as a factory so it can be AOT-compiled on its own
+    (tests/test_compile_lower.py)."""
 
     @functools.partial(
         jax.shard_map, mesh=mesh,
@@ -368,7 +368,7 @@ def _dust_phase_a_factory(mesh: Mesh, K_pad: int, cap_shard: int, s0: int):
     program: per-shard RAW boundary-pair buffers (local pairs + the seam
     pairs each shard owns via a 1-px bottom/right ppermute halo), ``s0``
     head sweeps whose biased min-scatter runs per shard and ``pmin``s
-    over ICI (min is associative — bitwise-equal to the single-buffer
+    across devices (min is associative — bitwise-equal to the single-buffer
     sweep in ops.connectivity._merge_phase_a), then per-shard compaction
     of the edges still able to drive an adoption. Everything raster- or
     edge-buffer-sized divides over the mesh; only the K-sized lut algebra
@@ -617,42 +617,32 @@ def sharded_glcm_props(mesh: Mesh, image: jnp.ndarray, labels: jnp.ndarray,
                        compute_asm: bool = True,
                        bands: Optional[Tuple[int, ...]] = None,
                        packed: bool = False,
-                       multi_cap: Optional[int] = None,
-                       use_pallas: Optional[bool] = None,
-                       interpret: bool = False):
+                       multi_cap: Optional[int] = None):
     """Per-object GLCM props with the raster sharded over the mesh.
-
-    Big TPU scenes route to the sharded Pallas MXU kernel
-    (:mod:`obia_tpu.parallel.glcm_sharded` — per-shard job lists, no
-    N-row scatters; ``use_pallas`` forces the choice, ``interpret`` runs
-    the kernel in interpret mode for CPU-mesh tests); the scatter
-    joint-histogram path below remains for small scenes and non-TPU
-    backends.
 
     Quantisation bounds reduce with pmin/pmax; cross-seam pixel pairs come
     from a ``distance``-deep ppermute halo exchange of the band + label
     blocks (each pair is counted by the shard owning its CENTER pixel, so
     counts match the single-device path exactly); the seven pairwise sums
-    psum over ICI (additive, (K, 7) — tiny).
+    psum across devices (additive, (K, 7) — tiny).
 
     Exact symmetric ASM is HYBRID: sum-of-squared-counts is quadratic, so
     per-shard values do not add — but an object whose pixels live on ONE
     shard has its full histogram locally, and its local sumsq is already
     exact. Only shard-SPANNING objects (those crossing mesh seams — a
     ~1-D subset, ranked into a compact id space of ``multi_cap`` slots)
-    reduce a psum'd (multi_cap, levels^2) histogram. At the north-star
-    shape this cuts the ASM collective volume from
-    angles*bands*(K, L^2) ~ 25 GB to ~2 GB. ``multi_cap`` is sized
+    reduce a psum'd (multi_cap, levels^2) histogram, which cuts the ASM
+    collective volume from angles*bands*(K, L^2) by the share of objects
+    that span a seam. ``multi_cap`` is sized
     EXACTLY by a cheap pre-pass (:func:`count_shard_spanning`) when not
     given; pass it explicitly to make this function fully AOT-lowerable
-    (tools/compile_check_v5e8.py does — an explicit cap smaller than the
+    (tests/test_compile_lower.py does — an explicit cap smaller than the
     true spanning count would alias histogram rows, so production
     callers should leave it to the pre-pass).
 
     With ``packed=True`` returns ``(GLCM_PROP_NAMES, (B, 6, K) device
     array)`` — ONE value to download — instead of the per-prop dict
-    (whose device transposes cost an eager dispatch each on
-    remote-attached TPUs)."""
+    (whose device transposes cost an eager dispatch each)."""
     from ..ops.glcm import (_ASM_HIST_MAX_ELEMS, DEFAULT_ANGLES,
                             _check_levels, _glcm_props_from_sums,
                             _pair_weight_table, angle_offsets,
@@ -663,18 +653,6 @@ def sharded_glcm_props(mesh: Mesh, image: jnp.ndarray, labels: jnp.ndarray,
         image = jnp.asarray(image, jnp.float32)
     angles = tuple(angles) if angles is not None else DEFAULT_ANGLES
 
-    from ..ops.glcm_pallas import use_pallas_glcm
-    Hp, Wp = labels.shape
-    engage = (use_pallas if use_pallas is not None
-              else use_pallas_glcm(Hp * Wp, num_segments, levels,
-                                   distance, angles))
-    if engage:
-        from .glcm_sharded import sharded_glcm_props_pallas
-        return sharded_glcm_props_pallas(
-            mesh, image, labels, num_segments, levels=levels,
-            distance=distance, angles=angles, compute_asm=compute_asm,
-            bands=bands, packed=packed, interpret=interpret)
-
     offs = angle_offsets(distance, angles)
     K = num_segments
     L = levels
@@ -683,7 +661,8 @@ def sharded_glcm_props(mesh: Mesh, image: jnp.ndarray, labels: jnp.ndarray,
     table = K * L * L
     if compute_asm and table > _ASM_HIST_MAX_ELEMS:
         # the fused int32 key (lab*L^2 + lo*L + hi) overflows and the
-        # psum'd (K, L^2) f32 table OOMs HBM past this bound (the bound
+        # psum'd (K, L^2) f32 table outgrows device memory past this
+        # bound (the bound
         # itself keeps key_max = table <= 2^28 < 2^31). The single-device
         # kernel falls back to its sort path there — exact sorted-run ASM
         # has no sharded reduction (global pair counts are not reducible
@@ -730,9 +709,9 @@ def sharded_glcm_props(mesh: Mesh, image: jnp.ndarray, labels: jnp.ndarray,
 
         # scan over bands, NOT a traced python loop: with the loop
         # unrolled XLA co-schedules the independent bands' (K, L^2)
-        # histogram temporaries and blows per-chip HBM at the north-star
-        # shape (29.5 GiB vs 15.75 — tools/compile_check_v5e8.py); the
-        # scan keeps exactly one band's temporaries live, the same fix
+        # histogram temporaries, B times one band's memory at the
+        # north-star shape; the scan keeps exactly one band's
+        # temporaries live, the same fix
         # the single-device kernel took at 100 MP (per-band programs)
         bands_stack = jnp.stack([img_loc[..., b] for b in band_ids])
 
@@ -778,8 +757,8 @@ def sharded_glcm_props(mesh: Mesh, image: jnp.ndarray, labels: jnp.ndarray,
                     hist_loc = jax.ops.segment_sum(
                         wgt, key, num_segments=table + 1)[:table] \
                         .reshape(K, L * L)
-                    # HIGHEST: default matmul precision bf16-rounds the
-                    # squared counts (rel 2^-9) — see ops/glcm.py
+                    # HIGHEST: at the default precision the squared
+                    # counts may be rounded to TF32 — see ops/glcm.py
                     sumsq_loc = jnp.dot(hist_loc * hist_loc, W8[:, 7],
                                         precision=jax.lax.Precision.HIGHEST)
                     sumsq = jax.lax.psum(

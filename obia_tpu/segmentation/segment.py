@@ -19,8 +19,6 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-from PIL.Image import Image as PILImage
-from PIL.Image import fromarray
 
 from .segment_boundaries import (LABEL_RASTER_ATTR, create_segments)
 from .segment_statistics import create_objects
@@ -49,6 +47,8 @@ class Segments:
     def to_segmented_image(self, image):
         """Overlay segment boundaries (yellow, like skimage
         ``mark_boundaries`` defaults) on a PIL image."""
+        from PIL.Image import Image as PILImage
+        from PIL.Image import fromarray
         if not isinstance(image, PILImage):
             raise TypeError("Input must be a PIL Image")
         img = np.array(image)

@@ -1,7 +1,7 @@
 """Segment boundary creation: raster → superpixel label raster → polygons.
 
 API-parity module for reference obia/segmentation/segment_boundaries.py
-(``normalize_band`` :11-16, ``create_segments`` :18-78) with the TPU-native
+(``normalize_band`` :11-16, ``create_segments`` :18-78) with the device
 execution model: SLIC/quickshift run as XLA programs
 (:mod:`obia_tpu.ops.slic`, :mod:`obia_tpu.ops.quickshift`), the whole label
 raster is polygonised in ONE vectorised pass (the reference re-runs GDAL
@@ -154,8 +154,7 @@ def segment_label_raster(image, segmentation_bands=None, method: str = "slic",
                 f"0 to {num_bands - 1}.")
 
     # single cached upload; per-band min-max normalisation on device (one
-    # jitted call — eager op-by-op dispatch is avoided: it is slow and can
-    # wedge remote-attached TPU runtimes)
+    # jitted call — eager op-by-op dispatch is avoided: it is slow)
     import jax.numpy as jnp
     dev = (image.device_array() if hasattr(image, "device_array")
            else jnp.asarray(image.img_data, jnp.float32))

@@ -1,4 +1,4 @@
-"""Per-object feature extraction — fused TPU passes over the label raster.
+"""Per-object feature extraction — fused device passes over the label raster.
 
 API-parity module for reference obia/segmentation/segment_statistics.py:
 ``_create_empty_stats_columns`` (:12-110, column naming ``b{band}_{stat}``
@@ -7,7 +7,7 @@ and ordering preserved exactly), ``calculate_spectral_stats`` (:113-176),
 
 Execution model: instead of the reference's per-segment loop (windowed disk
 read + polygon mask + scipy/skimage per object — hot loop #2), all objects
-are reduced in a handful of XLA passes over the HBM-resident label raster
+are reduced in a handful of XLA passes over the device-resident label raster
 (:mod:`obia_tpu.ops.stats`, :mod:`obia_tpu.ops.glcm`).
 
 Deliberate divergences (SURVEY.md §7 quirks):
@@ -400,8 +400,7 @@ def create_objects(segments: GeoDataFrame, image, ept=None, ept_srs=None,
                 names, packed = _exec["spectral"](K)
             else:
                 # ONE device value + ONE download; per-stat device trims
-                # and an eager re-stack cost a ~28 ms round trip each on
-                # remote-attached TPUs
+                # and an eager re-stack would cost a dispatch each
                 from ..ops.stats import spectral_moments_packed
                 names, packed = spectral_moments_packed(
                     jnp.asarray(img), labels_dev, K)

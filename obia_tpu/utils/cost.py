@@ -9,7 +9,7 @@ behaviors — weights must total 1, WorldView-3 band layout
 (C,B,G,Y,R,RE,N1,N2), -9999 nodata, SystemExit on unusable inputs,
 UserWarning + weight renormalisation when no SLIC layer is given.
 
-TPU-native execution: sobel gradients, windowed-histogram entropy, and the
+Device execution: sobel gradients, windowed-histogram entropy, and the
 edge map all run as XLA programs (:mod:`obia_tpu.ops.filters`); I/O goes
 through this framework's own GeoTIFF/GPKG codecs.
 """

@@ -4,7 +4,7 @@ API-parity module for reference obia/utils/image.py (rescale_to_8bit :8-36,
 apply_histogram_equalization :39-66, apply_clahe :69-94, rgb_to_gray :97-100,
 variance_of_laplacian :103-107, laplacian :110-136). Host-side paths use
 OpenCV exactly like the reference; the raster-scale sharpness map
-(``laplacian``) also has a TPU/XLA path in :mod:`obia_tpu.ops.filters` used
+(``laplacian``) also has an XLA path in :mod:`obia_tpu.ops.filters` used
 when the input is already device-resident.
 """
 from __future__ import annotations

@@ -7,7 +7,7 @@ API-parity module for reference obia/utils/seeds.py: peak detection
 clustering, cost-weighted distance matrix, precomputed DBSCAN, optional
 height split, per-cluster trim, and KD-tree NMS.
 
-TPU-native changes: gaussian smoothing + local-maxima detection run as XLA
+Device changes: gaussian smoothing + local-maxima detection run as XLA
 reduce_window programs (:mod:`obia_tpu.ops.filters`), and the reference's
 O(n^2) Python double loop over 12-sample cost-line integrals (hot loop #4,
 reference seeds.py:139-165) is ONE vectorised device pass

@@ -16,7 +16,7 @@ semantics are the reference's checkerboard algorithm:
   written to ``segments.gpkg``.
 
 I/O goes through this framework's own GeoTIFF reader (no GDAL), and the
-per-tile segmentation is the TPU SLIC. For the fully device-resident
+per-tile segmentation is the device SLIC. For the fully device-resident
 sharded path, see :mod:`obia_tpu.parallel.mosaic` — this module is the
 reference-compatible host orchestration.
 
@@ -85,8 +85,7 @@ def _auto_n_segments(mask: Optional[np.ndarray], h: int, w: int,
 
 # tile rasters are padded (with masked-out pixels) up to this shape bucket
 # so edge tiles reuse the interior tiles' compiled device programs — every
-# distinct tile shape otherwise compiles its own SLIC pipeline (minutes
-# per shape on remote-attached TPUs)
+# distinct tile shape otherwise compiles its own SLIC pipeline
 _TILE_SHAPE_BUCKET = 64
 
 

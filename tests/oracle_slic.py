@@ -25,6 +25,23 @@ from __future__ import annotations
 import numpy as np
 
 
+def rgb_to_lab64(rgb: np.ndarray) -> np.ndarray:
+    """float64 sRGB (D65, [0, 1]) -> CIELAB, the conversion skimage's slic
+    applies to 3-channel input (``convert2lab``)."""
+    m = np.array([[0.412453, 0.357580, 0.180423],
+                  [0.212671, 0.715160, 0.072169],
+                  [0.019334, 0.119193, 0.950227]])
+    white = np.array([0.95047, 1.0, 1.08883])
+    rgb = np.clip(np.asarray(rgb, np.float64), 0.0, 1.0)
+    lin = np.where(rgb > 0.04045, ((rgb + 0.055) / 1.055) ** 2.4,
+                   rgb / 12.92)
+    xyz = (lin @ m.T) / white
+    f = np.where(xyz > 0.008856, np.cbrt(xyz), (903.3 * xyz + 16.0) / 116.0)
+    return np.stack([116.0 * f[..., 1] - 16.0,
+                     500.0 * (f[..., 0] - f[..., 1]),
+                     200.0 * (f[..., 1] - f[..., 2])], axis=-1)
+
+
 def slic_oracle(image: np.ndarray, n_segments: int = 100,
                 compactness: float = 10.0, max_num_iter: int = 10,
                 min_size_factor: float = 0.5,
@@ -119,8 +136,25 @@ def _enforce_connectivity(labels: np.ndarray, min_size: int,
 
 
 def adjusted_rand_index(a: np.ndarray, b: np.ndarray) -> float:
-    from sklearn.metrics import adjusted_rand_score
-    return float(adjusted_rand_score(np.ravel(a), np.ravel(b)))
+    """Hubert-Arabie adjusted Rand index of two labelings (1.0 when both
+    put everything in one cluster), computed from the contingency table."""
+    _, ia = np.unique(np.ravel(a), return_inverse=True)
+    _, ib = np.unique(np.ravel(b), return_inverse=True)
+    _, nij = np.unique(ia.astype(np.int64) * (ib.max() + 1) + ib,
+                       return_counts=True)
+
+    def pairs(counts):
+        counts = counts.astype(np.float64)
+        return float((counts * (counts - 1) / 2).sum())
+
+    index = pairs(nij)
+    sum_a = pairs(np.bincount(ia))
+    sum_b = pairs(np.bincount(ib))
+    expected = sum_a * sum_b / pairs(np.array([ia.size]))
+    max_index = (sum_a + sum_b) / 2
+    if max_index == expected:
+        return 1.0
+    return (index - expected) / (max_index - expected)
 
 
 def boundary_recall(pred: np.ndarray, truth: np.ndarray,

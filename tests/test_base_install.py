@@ -72,3 +72,58 @@ def test_fallbacks_match_cv2_when_available():
     ours = _clahe_u8(g).astype(int)
     ref = cv2.createCLAHE(clipLimit=2.0, tileGridSize=(8, 8)).apply(g)
     assert np.abs(ours - ref.astype(int)).mean() < 4.0
+
+
+MAIN_PATH_SCRIPT = textwrap.dedent("""
+    import builtins
+    BLOCKED = ("PIL", "flax", "cv2", "click", "tqdm", "orbax",
+               "matplotlib", "sklearn")
+    real_import = builtins.__import__
+    def blocked(name, *a, **k):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"No module named {name!r} (simulated)")
+        return real_import(name, *a, **k)
+    builtins.__import__ = blocked
+
+    import numpy as np
+    from obia_tpu.classification.classify import classify
+    from obia_tpu.geometry import Affine
+    from obia_tpu.geometry.geom import Point
+    from obia_tpu.handlers.geotif import open_geotiff
+    from obia_tpu.io.tiff import write_tiff
+    from obia_tpu.segmentation.segment import segment
+    from obia_tpu.utils.utils import label_segments
+    from obia_tpu.vector import GeoDataFrame, read_file
+
+    rng = np.random.default_rng(0)
+    arr = (rng.random((64, 64, 4)) * 2047).astype(np.uint16)
+    arr[:, 32:] //= 4
+    write_tiff("scene.tif", arr, transform=Affine(1, 0, 0, 0, -1, 64),
+               crs="EPSG:32633")
+    s = segment(open_geotiff("scene.tif"), segmentation_bands=[0, 1, 2],
+                method="slic", n_segments=16, compactness=10)
+    pts = [Point(x + 0.5, 63.5 - y) for y in range(2, 64, 8)
+           for x in range(2, 64, 8)]
+    cls = [int(p.x >= 32) for p in pts]
+    training, _ = label_segments(s.segments,
+                                 GeoDataFrame({"class": cls}, geometry=pts))
+    result = classify(s.segments, training, method="rf", n_estimators=5,
+                      random_state=0, compute_reports=True)
+    GeoDataFrame(result.classified).to_file("out.gpkg")
+    assert len(read_file("out.gpkg")) == len(s.segments)
+    print("MAIN_PATH_OK")
+""")
+
+
+def test_main_path_without_optional_packages(tmp_path):
+    """open_geotiff -> segment -> label_segments -> classify(rf) ->
+    GeoPackage with Pillow, flax, OpenCV, click, tqdm, orbax, matplotlib
+    and scikit-learn all unimportable (a GPU host may lack every one)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", MAIN_PATH_SCRIPT], cwd=tmp_path, text=True,
+        capture_output=True,
+        env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
+             "JAX_PLATFORMS": "cpu", "HOME": str(tmp_path)},
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "MAIN_PATH_OK" in proc.stdout

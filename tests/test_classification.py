@@ -1,5 +1,6 @@
-"""Classification tests: JAX forest parity vs sklearn, Flax MLP, classify()
-API, label_segments, end-to-end quickstart pipeline."""
+"""Classification tests: forest fit parity vs scikit-learn, device
+traversal vs the host traversal, MLP, classify() API, label_segments,
+end-to-end quickstart pipeline."""
 import numpy as np
 import pytest
 
@@ -14,15 +15,33 @@ from obia_tpu.vector import GeoDataFrame
 
 
 def test_jax_forest_matches_sklearn(rng):
+    """Without bootstrap or feature sampling and at depth 3, CART has one
+    answer (no ties among splits on continuous data): the fitted forest
+    must predict exactly what scikit-learn's does."""
+    from sklearn.ensemble import RandomForestClassifier
     X = rng.normal(size=(300, 8)).astype(np.float64)
     y = (X[:, 0] + X[:, 1] * 2 + rng.normal(0, 0.3, 300) > 0).astype(int)
-    clf = JaxForestClassifier(n_estimators=25, random_state=0)
-    clf.fit(X[:200], y[:200])
-    want = clf.sklearn_model.predict_proba(X[200:])
-    got = clf.predict_proba(X[200:])
-    np.testing.assert_allclose(got, want, atol=1e-5)
-    np.testing.assert_array_equal(clf.predict(X[200:]),
-                                  clf.sklearn_model.predict(X[200:]))
+    kw = dict(n_estimators=5, max_depth=3, max_features=None,
+              bootstrap=False, random_state=0)
+    clf = JaxForestClassifier(**kw).fit(X[:200], y[:200])
+    skl = RandomForestClassifier(**kw).fit(X[:200], y[:200])
+    np.testing.assert_allclose(clf.predict_proba(X[200:]),
+                               skl.predict_proba(X[200:]), atol=1e-6)
+    np.testing.assert_array_equal(clf.predict(X[200:]), skl.predict(X[200:]))
+
+
+def test_jax_forest_device_matches_host_traversal(rng):
+    """The batched device traversal equals the plain host traversal of
+    the same bootstrap forest."""
+    from obia_tpu.classification.trees import predict_proba_host
+    X = rng.normal(size=(400, 12))
+    y = np.where(X[:, 0] + X[:, 3] > 0, "a", "b")
+    y[X[:, 5] > 1.2] = "c"
+    clf = JaxForestClassifier(n_estimators=40, random_state=1).fit(
+        X[:250], y[:250])
+    np.testing.assert_allclose(clf.predict_proba(X[250:]),
+                               predict_proba_host(clf.trees_, X[250:]),
+                               rtol=0, atol=1e-6)
 
 
 def test_flax_mlp_learns(rng):
@@ -246,7 +265,7 @@ def test_forest_fit_cache_hit_and_safety(rng):
     a = F.JaxForestClassifier(n_estimators=10, random_state=3).fit(X, y)
     assert len(F._FIT_CACHE) == 1
     b = F.JaxForestClassifier(n_estimators=10, random_state=3).fit(X, y)
-    assert b._skl is a._skl  # cache hit reuses the fitted estimator
+    assert b.trees_ is a.trees_  # cache hit reuses the fitted forest
     np.testing.assert_allclose(a.predict_proba(X), b.predict_proba(X))
     # different data -> different entry
     F.JaxForestClassifier(n_estimators=10, random_state=3).fit(X + 1, y)
@@ -257,7 +276,7 @@ def test_forest_fit_cache_hit_and_safety(rng):
 
 
 def test_forest_fit_cache_no_aliased_refit():
-    """A refit on an instance whose _skl ALIASES a cache entry must not
+    """A refit on an instance whose forest ALIASES a cache entry must not
     corrupt that entry (or sibling classifiers sharing it)."""
     from obia_tpu.classification.forest import _FIT_CACHE, JaxForestClassifier
 
@@ -270,7 +289,7 @@ def test_forest_fit_cache_no_aliased_refit():
     a = JaxForestClassifier(n_estimators=5, random_state=0).fit(X1, y1)
     p1 = np.array(a.predict_proba(X1))
     b = JaxForestClassifier(n_estimators=5, random_state=0)
-    b.fit(X1, y1)   # cache hit: b._skl aliases the cached estimator
+    b.fit(X1, y1)   # cache hit: b.trees_ aliases the cached forest
     b.fit(X2, y2)   # must refit a FRESH estimator, not the cached one
     c = JaxForestClassifier(n_estimators=5, random_state=0).fit(X1, y1)
     np.testing.assert_array_equal(np.array(c.predict_proba(X1)), p1)
@@ -396,9 +415,8 @@ def test_write_geotiff_filtered_rows_render_background(small_rgb, tmp_path,
 def test_forest_predict_before_fit_raises_notfitted():
     """sklearn facade contract: predicting before fit raises
     NotFittedError, not an AttributeError on internal state."""
-    from sklearn.exceptions import NotFittedError
-
-    from obia_tpu.classification.forest import JaxForestClassifier
+    from obia_tpu.classification.forest import (JaxForestClassifier,
+                                                NotFittedError)
 
     clf = JaxForestClassifier(n_estimators=3)
     with pytest.raises(NotFittedError):

@@ -1,14 +1,11 @@
 """AOT-lowerability guard for the sharded production programs.
 
-tools/compile_check_v5e8.py is the evidence-grade per-chip memory check —
-but it needs TPU hardware, so a trace-breaking host sync (a
-``device_get`` inside the traced function, like the round-4 hybrid-ASM
-auto-cap retry at sharded.py) could land on main and silently invalidate
-the recorded 9/9 table until someone re-ran the tool. This test keeps the
-*lowerability* half of that contract in CI: every sharded program must
-trace + lower under ``jax.jit`` on the 8-device CPU mesh. It does not
-check HBM budgets (CPU has none) — only that the programs still consist
-of pure traced computation.
+A trace-breaking host sync (a ``device_get`` inside the traced function,
+like the old hybrid-ASM auto-cap retry in sharded.py) would make a
+sharded program impossible to compile ahead of time. Every sharded
+program must trace + lower under ``jax.jit`` on the 8-device CPU mesh.
+This checks no device memory budget — only that the programs still
+consist of pure traced computation.
 """
 import jax
 import jax.numpy as jnp
@@ -73,35 +70,14 @@ def test_lower_spectral_moments(mesh):
 
 
 def test_lower_glcm_props(mesh):
-    # THE regression this file exists for: the round-4 auto-cap retry did
+    # THE regression this file exists for: an auto-cap retry did
     # int(jax.device_get(n_multi)) inside the trace, which raised
-    # ConcretizationTypeError exactly here (compile_check_v5e8 went 8/9
-    # while BASELINE.md recorded 9/9)
+    # ConcretizationTypeError exactly here
     img, lab = _structs(mesh)
     K_pad = pad_num_segments(N_SEG)
     jax.jit(lambda im, lb: S.sharded_glcm_props(
         mesh, im, lb, K_pad, levels=16, packed=True,
         multi_cap=64)[1]).lower(img, lab)
-
-
-def test_lower_glcm_pallas_program(mesh):
-    # the sharded Pallas GLCM device program (interpret kernels so it
-    # lowers on the CPU backend; TPU memory analysis is the tool's job)
-    from obia_tpu.ops.glcm import DEFAULT_ANGLES
-    from obia_tpu.parallel.glcm_sharded import _make_program
-    img, lab = _structs(mesh)
-    K_pad = pad_num_segments(N_SEG)
-    n_shards = len(mesh.devices.reshape(-1))
-    sh_flat = NamedSharding(mesh, P(("ty", "tx")))
-    sh_rep = NamedSharding(mesh, P())
-    jarr = lambda m: jax.ShapeDtypeStruct((n_shards * m,), jnp.int32,
-                                          sharding=sh_flat)
-    run = _make_program(mesh, K_pad, 16, 2, DEFAULT_ANGLES, (0, 1, 2),
-                        64, 128, 64, True, True)
-    run.lower(img, lab, jarr(128), jarr(128), jarr(64), jarr(64),
-              jarr(64), jarr(64),
-              jax.ShapeDtypeStruct((K_pad,), jnp.bool_, sharding=sh_rep),
-              jax.ShapeDtypeStruct((K_pad,), jnp.int32, sharding=sh_rep))
 
 
 def test_count_shard_spanning_exact(mesh):

@@ -77,23 +77,34 @@ def test_merge_small_labels_host():
 def test_tree_shap_local_accuracy(rng):
     """Native TreeSHAP: phi sums + expected value reconstruct the forest
     prediction exactly (local accuracy)."""
-    from sklearn.ensemble import RandomForestClassifier
+    from obia_tpu.classification.trees import fit_forest, predict_proba_host
     X = rng.normal(size=(200, 5))
     y = ((X[:, 0] + 2 * X[:, 1] - X[:, 2]) > 0).astype(int)
-    rf = RandomForestClassifier(n_estimators=8, random_state=0,
-                                max_depth=6).fit(X, y)
+    trees, classes = fit_forest(X, y, n_estimators=8, random_state=0,
+                                max_depth=6)
     Xt = rng.normal(size=(15, 5))
-    phi = native.tree_shap_forest(rf, Xt)
-    pred = rf.predict_proba(Xt)
+    phi = native.tree_shap_forest(trees, len(classes), Xt)
+    pred = np.mean([t.value[_leaf(t, Xt)] for t in trees], axis=0)
+    np.testing.assert_allclose(pred, predict_proba_host(trees, Xt),
+                               atol=1e-6)
     ev = np.zeros(2)
-    for est in rf.estimators_:
-        v = est.tree_.value[:, 0, :]
-        v = v / v.sum(axis=1, keepdims=True)
-        w = est.tree_.weighted_n_node_samples
-        leaves = est.tree_.children_left < 0
-        ev += (v[leaves] * (w[leaves] / w[0])[:, None]).sum(axis=0)
-    ev /= len(rf.estimators_)
+    for t in trees:
+        w = t.weighted_n_node_samples
+        leaves = t.children_left < 0
+        ev += (t.value[leaves] * (w[leaves] / w[0])[:, None]).sum(axis=0)
+    ev /= len(trees)
     np.testing.assert_allclose(phi.sum(axis=1) + ev, pred, atol=1e-8)
+
+
+def _leaf(tree, X):
+    """Leaf index of each row of X (float64 comparisons)."""
+    node = np.zeros(len(X), np.int64)
+    for _ in range(tree.max_depth):
+        f = tree.feature[node]
+        go = X[np.arange(len(X)), np.maximum(f, 0)] <= tree.threshold[node]
+        node = np.where(f < 0, node, np.where(go, tree.children_left[node],
+                                              tree.children_right[node]))
+    return node
 
 
 def test_merge_small_fragmented_stays_connected(rng):

@@ -122,6 +122,20 @@ def test_rgb_to_lab_known_values():
     np.testing.assert_allclose(lab[3], [32.30, 79.19, -107.86], atol=0.05)
 
 
+def test_rgb_to_lab_matches_float64_formula(rng):
+    """The device conversion (per-channel sums, so no reduced-precision
+    matmul can touch it) against the float64 formula over random colours,
+    including both sides of the sRGB linear segment and the Lab knee.
+    1e-4 absolute on L in [0, 100] is float32 rounding of the power and
+    cube root; a TF32 product would be off by ~1e-2."""
+    from obia_tpu.ops.color import rgb_to_lab
+    from oracle_slic import rgb_to_lab64
+    rgb = np.concatenate([rng.random((4096, 3)),
+                          rng.random((512, 3)) * 0.05]).astype(np.float32)
+    got = np.asarray(rgb_to_lab(rgb))
+    np.testing.assert_allclose(got, rgb_to_lab64(rgb), rtol=0, atol=1e-4)
+
+
 def test_slic_zero(small_rgb):
     labels = slic(small_rgb, n_segments=30, slic_zero=True,
                   convert2lab=False)

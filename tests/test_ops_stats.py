@@ -104,22 +104,30 @@ def naive_glcm_props(band, labels, k, levels=256, distance=2,
         vals = band[m]
         mn, mx = vals.min(), vals.max()
         if mx > mn:
-            # mirror the device path's float32 arithmetic so floor-boundary
-            # pixels quantise identically (subtract -> multiply by the
-            # precomputed (levels-1)/range inverse, ops.glcm.scale_quantise)
-            inv = np.float32(levels - 1) / np.float32(mx - mn)
-            scaled = (band.astype(np.float32) - np.float32(mn)) * inv
-            q = np.clip(np.floor(scaled), 0, levels - 1).astype(int)
+            # the level q of d = x - min satisfies
+            # q * range <= d * (levels-1) < (q+1) * range with float32
+            # products (ops.glcm.scale_quantise), found by search over
+            # the level thresholds — no division
+            rng = np.float32(mx - mn)
+            d = band.astype(np.float32) - np.float32(mn)
+            thresholds = np.arange(levels, dtype=np.float32) * rng
+            num = d * np.float32(levels - 1)
+            q = np.clip(np.searchsorted(thresholds, num, side="right") - 1,
+                        0, levels - 1)
         else:
             q = np.zeros_like(band, dtype=int)
         per_angle = {p: [] for p in out}
         for dr, dc in offs:
+            # every in-raster pair (r, c) -> (r + dr, c + dc) with both
+            # pixels in the object
+            r0, r1 = max(0, -dr), min(h, h - dr)
+            c0, c1 = max(0, -dc), min(w, w - dc)
             P = np.zeros((levels, levels))
-            for r in range(h):
-                for c in range(w):
-                    r2, c2 = r + dr, c + dc
-                    if 0 <= r2 < h and 0 <= c2 < w and m[r, c] and m[r2, c2]:
-                        P[q[r, c], q[r2, c2]] += 1
+            if r1 > r0 and c1 > c0:
+                both = (m[r0:r1, c0:c1]
+                        & m[r0 + dr:r1 + dr, c0 + dc:c1 + dc])
+                np.add.at(P, (q[r0:r1, c0:c1][both],
+                              q[r0 + dr:r1 + dr, c0 + dc:c1 + dc][both]), 1)
             P = P + P.T  # symmetric
             n = P.sum()
             if n == 0:

@@ -14,6 +14,19 @@ from obia_tpu.ops.slic import slic
 from oracle_slic import (adjusted_rand_index, boundary_recall, slic_oracle)
 
 
+@pytest.mark.parametrize("n_a,n_b,agree", [(20, 25, 0.8), (3, 3, 0.3),
+                                           (50, 2, 0.0)])
+def test_adjusted_rand_index_matches_sklearn(n_a, n_b, agree):
+    """The oracle's numpy ARI (the chip smoke run has no scikit-learn)
+    equals scikit-learn's adjusted_rand_score."""
+    from sklearn.metrics import adjusted_rand_score
+    rng = np.random.default_rng(n_a)
+    a = rng.integers(0, n_a, 5000)
+    b = np.where(rng.random(5000) < agree, a % n_b, rng.integers(0, n_b, 5000))
+    assert adjusted_rand_index(a, b) == pytest.approx(
+        adjusted_rand_score(a, b), abs=1e-12)
+
+
 def scene(h, w, seed=0):
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w]

@@ -1,5 +1,5 @@
-"""On-chip detection benchmark: jitted RetinaNet train step + whole-raster
-predict at a realistic tile size (VERDICT r4 item 6 / r3 item 7).
+"""Detection benchmark on the GPU: jitted RetinaNet train step +
+whole-raster predict at a realistic tile size.
 
 Model: the production default — ResNet-50 backbone (stage_sizes 3/4/6/3,
 width 64), FPN 256, torchvision-default anchors — on 8-band imagery
@@ -8,7 +8,7 @@ Scene: 1024x1024 x8-band tiles.
 
 Reports: train-step wall clock (batch 2, warm best-of), images/sec,
 whole-raster predict wall clock (decode + per-class NMS included), MP/s.
-Prints one JSON line for BASELINE.md.
+Prints one JSON line.
 """
 from __future__ import annotations
 
@@ -18,12 +18,10 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 import numpy as np  # noqa: E402
+
+from obia_tpu import compile_cache  # noqa: E402
 
 
 def main():
@@ -33,6 +31,8 @@ def main():
     import jax
     import jax.numpy as jnp
     import optax
+
+    compile_cache.enable()
 
     from obia_tpu.detection.models import build_detection_model
     from obia_tpu.detection.train import _make_train_step, _pad_batch

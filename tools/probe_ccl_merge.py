@@ -1,11 +1,9 @@
-"""On-chip probes for the connectivity + merge stages at north-star scale.
+"""Device probes for the connectivity + merge stages at north-star scale.
 
-Round-3 verdict item 2: connectivity (10.3 s) + merge_small (15.1 s) came
-in ~2.5x over their design budgets at 100 MP x8-band. The round-4 fine
-split (OBIA_PROFILE stage timers) shows ccl.local 9.2 s / ccl.union 1.2 s /
-merge.phase_a 10.7 s / merge.phase_b 4.6 s warm. This tool measures WHERE
-inside those programs the time goes, on the real chip, over realistic
-labels (the actual SLIC assignment of the bench's 100 MP scene):
+The OBIA_PROFILE stage timers split the kernel stage into ccl.local,
+ccl.union, merge.phase_a and merge.phase_b. This tool measures WHERE
+inside those programs the time goes, on the device, over realistic labels
+(the actual SLIC assignment of the bench's 100 MP scene):
 
 * scan-CCL alternation counts + wall-clock per block size (the while_loop
   hides its trip count; a counting replica exposes it)
@@ -13,7 +11,8 @@ labels (the actual SLIC assignment of the bench's 100 MP scene):
 * phase_a split: raw-pair scatter build vs head sweeps vs compaction
 * phase_b sweep count (capped + uncapped) via a counting replica
 
-Run as the ONLY TPU client:   python tools/probe_ccl_merge.py [H] [W]
+Run as the only JAX process on the card:
+    python tools/probe_ccl_merge.py [H] [W]
 """
 from __future__ import annotations
 
@@ -21,10 +20,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import functools  # noqa: E402
@@ -53,10 +48,12 @@ def main():
     import jax.numpy as jnp
 
     from bench import build_scene
+    from obia_tpu import compile_cache
     from obia_tpu.ops import connectivity as C
     from obia_tpu.ops import slic as S
     from obia_tpu.ops.stats import pad_num_segments
 
+    compile_cache.enable()
     print(f"devices: {jax.devices()}", flush=True)
 
     # --- realistic labels: the bench config-4 segmentation bands ---------

@@ -1,11 +1,10 @@
-"""On-chip probe: merge phase_a edge-build variants at north-star scale.
+"""Device probe: merge phase_a edge-build variants at north-star scale.
 
-phase_a is the largest kernel-stage item after the round-4b redesign
-(10.66 s of the 40.6 s run). Its floor is the raw boundary-pair build:
-two 2N-row compaction scatters (ea and eb separately, ~3.4 s at
-N = 100 MP) plus a 2N cumsum. Scatter cost on this chip is bound by
-index ROWS, not payload bytes (tools/probe_scatter.py), so packing both
-endpoints into ONE int64 scatter should halve the build's scatter time.
+phase_a's floor is the raw boundary-pair build: two 2N-row compaction
+scatters (ea and eb separately) plus a 2N cumsum. If scatter cost is
+bound by index ROWS, not payload bytes (tools/probe_scatter.py), packing
+both endpoints into ONE int64 scatter should halve the build's scatter
+time.
 This probe measures, on the REAL production labels (the config-4
 north-star SLIC assignment's raw CCL fragments):
 
@@ -14,7 +13,8 @@ north-star SLIC assignment's raw CCL fragments):
   C. the head sweep, isolated (context for where the rest of phase_a goes)
   D. full _merge_phase_a as shipped vs with the packed build
 
-Run as the ONLY TPU client:   python tools/probe_edge_build.py [H] [W]
+Run as the only JAX process on the card:
+    python tools/probe_edge_build.py [H] [W]
 """
 from __future__ import annotations
 
@@ -22,10 +22,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import functools  # noqa: E402
@@ -54,10 +50,12 @@ def main():
     import jax.numpy as jnp
 
     from bench import build_scene
+    from obia_tpu import compile_cache
     from obia_tpu.ops import connectivity as C
     from obia_tpu.ops import slic as S
     from obia_tpu.ops.stats import pad_num_segments
 
+    compile_cache.enable()
     print(f"devices: {jax.devices()}", flush=True)
 
     base3 = build_scene(h=H, w=W, c=4).astype(np.float32)
@@ -170,8 +168,9 @@ def main():
         n=3, name="_merge_phase_a shipped")
 
     # --- ccl.union anatomy: counted while_loop + hop-count variants -------
-    # (the union is REPLICATED in the sharded mosaic — every chip runs the
-    # full K-piece graph — so its wall-clock lands 1:1 in the v5e-8 budget)
+    # (the union is REPLICATED in the sharded mosaic — every device runs
+    # the full K-piece graph — so its wall-clock does not shrink with the
+    # mesh)
     piece, kp_dev, _ = C._tiled_ccl_local(labels, C._TILED_CCL_BLOCK)
     K_pieces = int(jax.device_get(kp_dev))
     KP_pad = pad_num_segments(max(K_pieces, 1))

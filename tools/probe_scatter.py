@@ -1,17 +1,17 @@
 """Scatter-rate probe: what bounds the GLCM joint-histogram floor?
 
 The 100 MP GLCM stage is N-row scatter-adds into (K, levels²) tables
-(obia_tpu/ops/glcm.py), measured at ~100 M index-rows/s on v5e — almost
-exactly one update per scalar-core cycle, which suggests the floor is
-issue-rate, not HBM. This probe separates the hypotheses by measuring
-scatter-add throughput across:
+(obia_tpu/ops/glcm.py). Whether their floor is the index rows issued,
+memory bandwidth, or contention on shared bins decides the GLCM design.
+This probe separates the hypotheses by measuring scatter-add throughput
+across:
 
   * payload width   (1 -> 128 lanes: is cost per ROW or per element?)
   * table size      (1 MB -> 700 MB: does the random-access span matter?)
   * key locality    (keys confined to 1 MB blocks vs uniform: cache/TLB?)
   * sorted keys     (best case: does XLA exploit monotone indices?)
 
-Interpretation guide (drives the round-4 GLCM design):
+Interpretation guide:
   - payload ~free + size/locality irrelevant  => issue-bound: only row
     REDUCTION helps (shard over mesh; payload-pack the five non-ASM props)
   - locality matters                          => tile labels into block
@@ -66,7 +66,7 @@ def main(n: int = 1 << 24) -> None:
             "seconds": round(best, 4),
             "mrows_per_s": round(n / best / 1e6, 1)}), flush=True)
 
-    # CPU smoke runs shrink the tables (1-core host, no HBM to probe)
+    # CPU smoke runs shrink the tables (no device memory to probe)
     shrink = 64 if dev.platform == "cpu" else 1
     big = 4 * (1 << 20) // shrink  # ~ K * levels^2 scale: 4M rows
     uniform_big = rng.integers(0, big, n).astype(np.int32)
